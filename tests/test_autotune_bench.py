@@ -1,8 +1,9 @@
 """Autotune selector and bench-harness tests."""
 
 import numpy as np
+import pytest
 
-from lilac_tpu import autotune, bench
+from lilac import autotune, bench
 
 
 def test_linear_selector_train_roundtrip(tmp_path):
@@ -44,7 +45,7 @@ def test_plan_uses_installed_model(tmp_path, monkeypatch, rng):
     monkeypatch.setenv(autotune.MODEL_ENV, str(p))
     autotune._cached_model = None
 
-    from lilac_tpu.plan import SpmvPlan
+    from lilac.plan import SpmvPlan
 
     (indptr, indices, data), shape = random_csr(rng, 64, 64, 0.1)
     plan = SpmvPlan(indptr, indices, data, shape, dtype="f32")
@@ -55,10 +56,10 @@ def test_plan_uses_installed_model(tmp_path, monkeypatch, rng):
 
 def test_bench_csv_and_analysis(tmp_path):
     rows = [
-        bench.BenchRow("tpu", "npb", "xla_ell", "S", [2.0, 2.1, 2.2]),
-        bench.BenchRow("tpu", "npb", "fast", "S", [1.0, 1.1, 1.0]),
-        bench.BenchRow("tpu", "npb", "xla_ell", "W", [4.0, 4.0, 4.0]),
-        bench.BenchRow("tpu", "npb", "fast", "W", [1.0, 1.0, 1.0]),
+        bench.BenchRow("gpu", "npb", "xla_ell", "S", [2.0, 2.1, 2.2]),
+        bench.BenchRow("gpu", "npb", "fast", "S", [1.0, 1.1, 1.0]),
+        bench.BenchRow("gpu", "npb", "xla_ell", "W", [4.0, 4.0, 4.0]),
+        bench.BenchRow("gpu", "npb", "fast", "W", [1.0, 1.0, 1.0]),
     ]
     p = tmp_path / "all.csv"
     bench.append_rows(str(p), rows)
@@ -66,12 +67,14 @@ def test_bench_csv_and_analysis(tmp_path):
     assert len(recs) == 12
     sp = bench.geomean_speedups(recs, "xla_ell")
     # geomean(2/1, 4/1) = sqrt(8)
-    assert abs(sp[("tpu", "npb", "fast")] - np.sqrt(8.0)) < 1e-9
+    assert abs(sp[("gpu", "npb", "fast")] - np.sqrt(8.0)) < 1e-9
 
 
 def test_bench_run_smoke():
     row = bench.run_bench("sparsebench", "10", runs=1, platform="cpu-test")
     assert len(row.times) == 1 and row.times[0] > 0
+    # the CSV platform label defaults to the device the run is on
+    assert bench.run_bench("sparsebench", "10", runs=1).platform == "cpu"
 
 
 def test_corpus_v2_families_and_validity():
@@ -140,16 +143,16 @@ def test_model_ship_gate_blocks_weak_models(tmp_path, monkeypatch):
     """A trained model whose held-out accuracy does not beat BOTH the
     majority-class and heuristic baselines must not install: predict()
     returns None and SpmvPlan's heuristic serves (round-4 verdict: the
-    shipped 0.52-accuracy model was worse than always saying 'routed')."""
+    shipped 0.52-accuracy model was worse than always saying one label)."""
     import json
 
     rng = np.random.default_rng(7)
     rows = []
-    # corpus where 'routed' wins 80% of rows but features are pure noise:
+    # corpus where 'xla_csr' wins 80% of rows but features are pure noise:
     # no linear model can beat the 0.8 majority/heuristic baselines
     for i in range(40):
-        win = "routed" if i % 5 else "xla_ell"
-        times = {"routed": 2.0, "xla_ell": 2.0}
+        win = "xla_csr" if i % 5 else "xla_ell"
+        times = {"xla_csr": 2.0, "xla_ell": 2.0}
         times[win] = 1.0
         rows.append(dict(
             name=f"r{i}", feat=list(rng.normal(size=5)), times=times,
@@ -180,10 +183,10 @@ def test_model_ship_gate_blocks_weak_models(tmp_path, monkeypatch):
 
     # a strong model (labels perfectly separable on feat[0]) DOES ship
     for i, r in enumerate(rows):
-        win = "routed" if i % 2 else "xla_ell"
-        r["times"] = {"routed": 2.0, "xla_ell": 2.0}
+        win = "xla_csr" if i % 2 else "xla_ell"
+        r["times"] = {"xla_csr": 2.0, "xla_ell": 2.0}
         r["times"][win] = 1.0
-        r["feat"][0] = 5.0 if win == "routed" else -5.0
+        r["feat"][0] = 5.0 if win == "xla_csr" else -5.0
     with open(rows_path, "w") as f:
         for r in rows:
             f.write(json.dumps(r) + "\n")
@@ -193,3 +196,22 @@ def test_model_ship_gate_blocks_weak_models(tmp_path, monkeypatch):
     autotune._cached_model = None
     autotune._cached_path = None
     assert autotune.installed_model() is not None
+
+
+@pytest.mark.parametrize("script", ["chip_smoke.py", "bench.py"])
+def test_entry_point_refuses_cpu(script):
+    """With no GPU, the GPU entry points exit non-zero and print no result
+    (chip_smoke's last line is never an "ok": true)."""
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    p = subprocess.run(
+        [sys.executable, os.path.join(repo, script)], cwd=repo, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert p.returncode != 0, p.stdout
+    assert '"ok": true' not in p.stdout
+    assert "no GPU" in p.stdout + p.stderr

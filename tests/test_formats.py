@@ -4,8 +4,8 @@ import numpy as np
 import pytest
 import scipy.sparse as sp
 
-from lilac_tpu.formats import convert
-from lilac_tpu.formats.sparse import CSR, ELL
+from lilac.formats import convert
+from lilac.formats.sparse import CSR, ELL
 
 
 def test_coo_to_csr_dedup(rng):

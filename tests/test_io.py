@@ -6,9 +6,9 @@ tests pin exact round-trip semantics on representative matrices."""
 import numpy as np
 import pytest
 
-from lilac_tpu.generate.graphs import powerlaw_graph
-from lilac_tpu.generate.random_crs import random_crs
-from lilac_tpu.io import readers
+from lilac.generate.graphs import powerlaw_graph
+from lilac.generate.random_crs import random_crs
+from lilac.io import readers
 
 
 def test_matrix_market_roundtrip_real(tmp_path):

@@ -12,8 +12,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from lilac_tpu.generate import sparsebench_gen as gen
-from lilac_tpu.solvers.line_ilu import (
+from lilac.generate import sparsebench_gen as gen
+from lilac.solvers.line_ilu import (
     LineILU,
     _affine_scan,
     line_ssor_solve,
@@ -115,7 +115,7 @@ def test_precond4_beats_bjacobi_on_gmres_case():
     """u/10/1 at the validated maxit=10: golden residuals are 12.73 (none)
     and 3.89 (block-Jacobi); line-ILU must land well below both — it is
     block-Jacobi plus the inter-line coupling."""
-    from lilac_tpu.workloads.sparsebench import run_case
+    from lilac.workloads.sparsebench import run_case
 
     base = run_case("u", 10, 1, 0)
     lilu = run_case("u", 10, 1, 4)

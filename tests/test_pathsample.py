@@ -4,7 +4,7 @@ LJ38 min.data/ts.data blobs are stripped, .MISSING_LARGE_BLOBS:10-12)."""
 import numpy as np
 import pytest
 
-from lilac_tpu.workloads import pathsample as ps
+from lilac.workloads import pathsample as ps
 
 
 @pytest.fixture(scope="module")
